@@ -4,8 +4,10 @@ The JAX package `shapeformer_tpu` is the reference; this package imports
 nothing of it.  Layout mirrors the reference package where that helps a
 reader (ops/, models/vqdif/, models/shapeformer/); grids keep its (B, X, Y,
 Z, C) layout at public functions.  `serve.complete` is the completion entry
-point; the encoder's segment pooling runs a hand-written CUDA kernel
-(csrc/segment_pool.cu) on CUDA tensors.
+point and `systems.build_trainer` the training one.  On CUDA tensors the
+encoder's segment pooling (csrc/segment_pool.cu) and the training forward's
+attention (csrc/attention.cu, forward and backward) run hand-written CUDA
+kernels.
 """
 import torch
 

@@ -5,6 +5,8 @@ configs/vqdif/shapenet_res16.yaml and configs/shapeformer/shapenet_scale.yaml
 (a CPU test holds them equal), kept here because the machine with the card
 has no YAML reader.  DEMO holds the completion settings of
 configs/demo/demo_shapeformer.yaml and the demo data's partial-cloud size.
+TRAIN holds the training settings of shapenet_scale.yaml and what training
+with the attention kernels changes in them.
 """
 from __future__ import annotations
 
@@ -94,4 +96,17 @@ DEMO = {
     "depth": 4,
     "decode_res": 128,
     "context_N": 16384,
+}
+
+# Training of the flagship transformer.  optim_opt, boundary_N (points of the
+# full cloud Xbd) and context_N (points of the partial cloud Xct) are
+# shapenet_scale.yaml's.  batch_size 8 is the shape the JAX package's own
+# training benchmark runs at and names for its attention kernel (B8 T812 H16
+# D64); the yaml's datamodule says 1.  systems.train_options() holds what
+# the kernel path changes in the transformer's options.
+TRAIN = {
+    "optim_opt": SHAPEFORMER_SCALE["optim_opt"],
+    "boundary_N": 32768,
+    "context_N": 16384,
+    "batch_size": 8,
 }

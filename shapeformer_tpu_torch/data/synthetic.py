@@ -1,4 +1,4 @@
-"""Synthetic partial clouds: superellipsoid surfaces cut by a half-space.
+"""Synthetic clouds: superellipsoid surfaces, whole and cut by a half-space.
 
 Own copy of the superellipsoid family of shapeformer_tpu/data/synthetic.py
 (random_shape_occupancy's part draws).  The surface is sampled by radial
@@ -46,7 +46,23 @@ def partial_cloud(rng: np.random.Generator, n_points: int = 16384
     """(n_points, 3) float32 partial scan in [-1, 1]: one random
     superellipsoid's surface, keeping the side of a random plane through
     (near) its centre."""
-    center, radii, power, rot = random_superellipsoid(rng)
+    return _cut_surface(rng, n_points, random_superellipsoid(rng))
+
+
+def training_pair(rng: np.random.Generator, context_n: int = 16384,
+                  boundary_n: int = 32768):
+    """One training example: (Xct (context_n, 3) partial scan, Xbd
+    (boundary_n, 3) whole surface) of the same random superellipsoid, float32
+    in [-1, 1]."""
+    shape = random_superellipsoid(rng)
+    xct = _cut_surface(rng, context_n, shape)
+    xbd = superellipsoid_surface(boundary_n, *shape, rng).astype(np.float32)
+    return xct, xbd
+
+
+def _cut_surface(rng: np.random.Generator, n_points: int, shape
+                 ) -> np.ndarray:
+    center, radii, power, rot = shape
     normal = rng.normal(size=3)
     normal /= np.linalg.norm(normal)
     offset = rng.uniform(-0.1, 0.1) * radii.min()

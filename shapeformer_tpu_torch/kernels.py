@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-KERNEL_SOURCES = ("segment_pool",)
+KERNEL_SOURCES = ("segment_pool", "attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

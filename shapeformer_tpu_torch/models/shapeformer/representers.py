@@ -1,14 +1,15 @@
-"""AR_N representer, test-stage path
-(shapeformer_tpu/models/shapeformer/representers.py).
+"""AR_N representer (shapeformer_tpu/models/shapeformer/representers.py).
 
 Bridges the frozen VQDIF and the transformer: condition tokens from a
-partial cloud, the 'next condition position' extra channel, and the
-sampling maskers (monotonic positions, end-token forcing, completion
-consistency).  Sequences are padded to max_length = block_size // 2.
+partial cloud and, for training, target tokens from the full cloud, the
+train-stage random thinning of the condition, the 'next condition position'
+extra channel, and the sampling maskers (monotonic positions, end-token
+forcing, completion consistency).  Sequences are padded to max_length =
+block_size // 2.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -31,10 +32,42 @@ def get_next_cond(c_pos: torch.Tensor, z_pos: torch.Tensor, end_token: int
                        nxt)
 
 
+def draw_cind_mask(B: int, L: int, generator: torch.Generator, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The uniform draws of the condition thinning: (k_u (B,), u (B, L))."""
+    k_u = torch.rand((B,), device=device, generator=generator)
+    u = torch.rand((B, L), device=device, generator=generator)
+    return k_u, u
+
+
+def random_cind_mask(c_indices: torch.Tensor, k_u: torch.Tensor,
+                     u: torch.Tensor, end_tokens: Sequence[int]
+                     ) -> torch.Tensor:
+    """Keep a random subset of each row's condition tokens, in order, moved
+    to the front and end-padded.  Row b keeps floor(k_u[b] * (len_b + 1))
+    tokens (at most len_b): those with the smallest u among its real
+    tokens.  A pure function of its arguments."""
+    B, L, _ = c_indices.shape
+    lens = sparse_ops.seq_lengths(c_indices, end_tokens)
+    k = torch.minimum(torch.floor(k_u * (lens + 1)).long(), lens)
+    real = torch.arange(L, device=c_indices.device)[None, :] < lens[:, None]
+    u = torch.where(real, u, torch.full_like(u, float("inf")))
+    rank = torch.argsort(torch.argsort(u, dim=1, stable=True), dim=1,
+                         stable=True)
+    keep = rank < k[:, None]
+    slot = torch.cumsum(keep.long(), dim=1) - 1
+    tgt = torch.where(keep, slot, torch.full_like(slot, L))
+    e = torch.tensor(list(end_tokens), device=c_indices.device,
+                     dtype=c_indices.dtype)
+    out = e.expand(B, L + 1, len(end_tokens)).clone()
+    src = torch.where(keep[..., None], c_indices, e.expand_as(c_indices))
+    out.scatter_(1, tgt[..., None].expand_as(src), src)
+    return out[:, :L]
+
+
 class AR_N:
     """Absolute raveled positions plus the next-condition-position extra
-    channel.  Training-only options (random_cind_masking) are accepted and
-    not used: only the test stage is ported."""
+    channel."""
 
     extra_tuple_n = 1
 
@@ -52,6 +85,7 @@ class AR_N:
         self.block_size = block_size
         self.uncond, self.no_val_ind = uncond, no_val_ind
         self.cloud_shrinkage = cloud_shrinkage
+        self.random_cind_masking = random_cind_masking
         self.mask_invalid = mask_invalid
         self.mask_invalid_completion = mask_invalid_completion
         self.max_length = block_size // 2
@@ -75,15 +109,31 @@ class AR_N:
             seq[..., 1] = 0
         return encoded["quant_feat"], quant_ind, mode, seq
 
-    def get_indices(self, Xct: torch.Tensor):
-        """Test stage: (c_indices, empty z_indices, extra_indices, others)."""
+    def get_indices(self, Xct: torch.Tensor,
+                    Xbd: Optional[torch.Tensor] = None, stage: str = "train",
+                    generator: Optional[torch.Generator] = None):
+        """-> (c_indices, z_indices, extra_indices, others), all (B, L, .)
+        end-padded.  Xct is the partial cloud, Xbd the full one (None: no
+        target tokens, as in sampling).  At stage 'train' with
+        random_cind_masking the condition is thinned with draws from
+        `generator`."""
         _, _, mode, c_indices = self.encode_cloud(Xct)
-        z_indices = c_indices[:, :0]
+        if Xbd is None:
+            z_indices = c_indices[:, :0]
+        else:
+            _, _, _, z_indices = self.encode_cloud(Xbd)
         if self.uncond:
             e = torch.tensor(self.input_end_tokens, device=c_indices.device)
             c_indices = e.expand_as(c_indices).clone()
         others = dict(empty_index=mode, origin_c_indices=c_indices,
                       origin_z_indices=z_indices)
+        if stage == "train" and self.random_cind_masking:
+            if generator is None:
+                raise ValueError("random_cind_masking needs a generator")
+            k_u, u = draw_cind_mask(*c_indices.shape[:2], generator,
+                                    c_indices.device)
+            c_indices = random_cind_mask(c_indices, k_u, u,
+                                         self.input_end_tokens)
         extra = self.get_extra_indices(c_indices, z_indices)
         return c_indices, z_indices, extra, others
 

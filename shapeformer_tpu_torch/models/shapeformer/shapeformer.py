@@ -1,8 +1,14 @@
-"""ShapeFormer sampling (shapeformer_tpu/models/shapeformer/shapeformer.py).
+"""ShapeFormer: the teacher-forced loss and the sampler
+(shapeformer_tpu/models/shapeformer/shapeformer.py).
 
-One prefill of the condition, candidate tiling of the caches, then a Python
-loop of KV-cached two-stage decode steps with the representer's maskers and
-ranked top-k / top-p sampling.  The loop stops at block_size, or at the
+Loss: condition and target tuple sequences are concatenated and shifted by
+one, the CondTupleGPT runs teacher-forced, and each tuple element's
+cross-entropy over the generation region is weighted by the target's token
+mask.
+
+Sampling: one prefill of the condition, candidate tiling of the caches,
+then a Python loop of KV-cached two-stage decode steps with the
+representer's maskers and ranked top-k / top-p sampling.  The loop stops at block_size, or at the
 first step after which every row's last token has an end element (the JAX
 package's exit check).  The caches are plain per-row caches; the JAX
 package's split condition cache yields the same tokens.
@@ -14,6 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from ...ops import sampling
+from ...ops import sparse as sparse_ops
 from .representers import AR_N
 from .transformer.mingpt import CondTupleGPT
 
@@ -38,9 +45,54 @@ class ShapeFormer:
         self.block_size = block_size
         self.end_tokens = tuple(end_tokens)
         self.voxel_res = voxel_res
+        self.optim_opt = optim_opt or {}
         self.transformer = _build(transformer_opt)
         self.representer = _build(representer_opt)
         self.max_length = self.representer.max_length
+
+    def compute_logits(self, c_indices: torch.Tensor, z_indices: torch.Tensor,
+                       extra_indices: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       deterministic: bool = True):
+        """Teacher-forced forward: per-element logits over the generation
+        region, [(B, L_z, V_i)].  idx = cat(c, z)[:, :-1] predicts
+        cat(c, z)[:, 1:]; padding keys are hidden by the representer's token
+        masks."""
+        L_c = c_indices.shape[1]
+        cz = torch.cat([c_indices, z_indices], dim=1)
+        idx, target = cz[:, :-1], cz[:, 1:]
+        rep = self.representer
+        key_valid = torch.cat([rep.cond_token_mask(c_indices),
+                               rep.cond_token_mask(z_indices)], dim=1)[:, :-1]
+        return self.transformer(
+            idx, extra_indices[:, :-1], L_c, target, key_valid,
+            deterministic=deterministic, generator=generator,
+            logits_start=L_c - 1)
+
+    def loss(self, batch: dict, generator: Optional[torch.Generator] = None,
+             stage: str = "train",
+             on_phase: Optional[Callable[..., None]] = None) -> torch.Tensor:
+        """Masked cross-entropy, averaged over the tuple elements.  batch:
+        Xct (B, N, 3) partial clouds and Xbd (B, M, 3) full clouds in
+        [-1, 1].  The frozen VQDIF tokenizes without gradients; at stage
+        'train' the generator feeds the condition thinning and dropout.
+        on_phase('tokenize'), when given, is called after tokenizing."""
+        with torch.no_grad():
+            c, z, extra, _ = self.representer.get_indices(
+                batch["Xct"], batch.get("Xbd"), stage=stage,
+                generator=generator)
+        if on_phase is not None:
+            on_phase("tokenize")
+        logits = self.compute_logits(c, z, extra, generator=generator,
+                                     deterministic=(stage != "train"))
+        w = sparse_ops.token_mask(z, self.end_tokens)
+        denom = w.sum().clamp(min=1.0)
+        total = 0.0
+        for i, lg in enumerate(logits):
+            logp = torch.log_softmax(lg.float(), dim=-1)
+            nll = -torch.gather(logp, -1, z[..., i:i + 1])[..., 0]
+            total = total + (nll * w).sum() / denom
+        return total / len(logits)
 
     @torch.no_grad()
     def sample_indices(self, c_indices: torch.Tensor,
@@ -140,7 +192,8 @@ class ShapeFormer:
         `candidates` samples each.  Returns tokens / raw (S, candidates, L,
         2), log_prob (S, candidates) and the empty_index of the batch."""
         with torch.no_grad():
-            c, _, _, others = self.representer.get_indices(Xct)
+            c, _, _, others = self.representer.get_indices(Xct,
+                                                           stage="test")
         out, raw, logp = self.sample(
             c, generator, max_steps=max_steps, top_k=top_k, top_p=top_p,
             temperature=temperature, best_in_first=best_in_first,

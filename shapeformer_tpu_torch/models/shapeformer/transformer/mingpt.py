@@ -1,45 +1,74 @@
-"""CondTupleGPT inference: prefill and KV-cached two-stage decode
-(shapeformer_tpu/models/shapeformer/transformer/mingpt.py).
+"""CondTupleGPT: the training forward, prefill and KV-cached two-stage
+decode (shapeformer_tpu/models/shapeformer/transformer/mingpt.py).
 
 Numerics follow the JAX package: f32 compute, exact erf GELU, LayerNorm eps
 1e-5, finite NEG_INF masking with an f32 softmax, and a bf16 KV cache
 (`cache_dtype`).  Prefill attends with its unrounded f32 k/v while the cache
 stores them rounded.  Caches are per-layer (B, T, C) tensors (heads unsplit)
 that decode updates in place, where the JAX package returns new arrays.
-Attention stays in torch ops: the JAX package runs it in XLA on this path.
+
+Prefill and decode attend with torch ops: the JAX package runs them in XLA.
+The training forward attends with torch ops too, or, with `flash_attn=True`,
+with the hand CUDA kernels of ops/attention.py, as the JAX package's
+training forward takes its Pallas kernel.  Dropout masks come from an
+explicit torch.Generator.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ....ops.attention import CausalAttention
 
 NEG_INF = -1e30
 
 Cache = List[List[Tuple[torch.Tensor, torch.Tensor]]]
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from `generator`; the identity at
+    p = 0 or without a generator (the deterministic forward)."""
+    if p <= 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, device=x.device, generator=generator) >= p
+    return x * keep / (1.0 - p)
+
+
 class CausalSelfAttention(nn.Module):
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
         super().__init__()
         self.n_head = n_head
+        self.attn_pdrop, self.resid_pdrop = attn_pdrop, resid_pdrop
         self.qkv = nn.Linear(n_embd, 3 * n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
-        """x (B, T, C), mask broadcastable to (B, 1, T, T) -> (y, (k, v))
-        with k, v (B, T, C) in f32."""
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                key_valid: Optional[torch.Tensor] = None,
+                flash: Optional[CausalAttention] = None,
+                generator: Optional[torch.Generator] = None):
+        """x (B, T, C) -> (y, (k, v)) with k, v (B, T, C) in f32.  Without
+        `flash`, mask (broadcastable to (B, 1, T, T)) says what is attended;
+        with it, the kernel op attends causally over key_valid (B, T) and
+        mask is not read.  generator: dropout source, None = deterministic."""
         B, T, C = x.shape
         H, D = self.n_head, C // self.n_head
         q, k, v = self.qkv(x).split(C, dim=-1)
-        qh, kh, vh = (t.reshape(B, T, H, D).transpose(1, 2) for t in (q, k, v))
-        att = (qh @ kh.transpose(-1, -2)) * (1.0 / math.sqrt(D))
-        att = att.masked_fill(~mask, NEG_INF).float().softmax(dim=-1)
-        y = (att @ vh).transpose(1, 2).reshape(B, T, C)
-        return self.proj(y), (k, v)
+        if flash is not None:
+            y = flash(*(t.view(B, T, H, D) for t in (q, k, v)), key_valid)
+        else:
+            qh, kh, vh = (t.reshape(B, T, H, D).transpose(1, 2)
+                          for t in (q, k, v))
+            att = (qh @ kh.transpose(-1, -2)) * (1.0 / math.sqrt(D))
+            att = att.masked_fill(~mask, NEG_INF).float().softmax(dim=-1)
+            att = dropout(att, self.attn_pdrop, generator)
+            y = (att @ vh).transpose(1, 2).reshape(B, T, C)
+        return dropout(self.proj(y), self.resid_pdrop, generator), (k, v)
 
     def decode(self, x_new: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, index: int, key_valid: torch.Tensor
@@ -63,21 +92,28 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
         super().__init__()
+        self.resid_pdrop = resid_pdrop
         self.ln1 = nn.LayerNorm(n_embd, eps=1e-5)
         self.ln2 = nn.LayerNorm(n_embd, eps=1e-5)
-        self.attn = CausalSelfAttention(n_embd, n_head)
+        self.attn = CausalSelfAttention(n_embd, n_head, attn_pdrop,
+                                        resid_pdrop)
         self.fc1 = nn.Linear(n_embd, 4 * n_embd)
         self.fc2 = nn.Linear(4 * n_embd, n_embd)
 
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
-        a, kv = self.attn(self.ln1(x), mask)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                key_valid: Optional[torch.Tensor] = None,
+                flash: Optional[CausalAttention] = None,
+                generator: Optional[torch.Generator] = None):
+        a, kv = self.attn(self.ln1(x), mask, key_valid, flash, generator)
         x = x + a
-        return x + self._mlp(self.ln2(x)), kv
+        mlp = dropout(self._mlp(self.ln2(x)), self.resid_pdrop, generator)
+        return x + mlp, kv
 
     def decode(self, x_new, cache_k, cache_v, index, key_valid):
         x = x_new + self.attn.decode(self.ln1(x_new), cache_k, cache_v, index,
@@ -109,7 +145,12 @@ class CondTupleGPT(nn.Module):
     element i is added before stage i + 1.  Condition and generation tokens
     have separate positional tables, the generation one restarting at 0.
     Submodule names follow the JAX parameter tree (tok_embs_0,
-    stages_0_3, heads_1, ...)."""
+    stages_0_3, heads_1, ...).
+
+    flash_attn: the training forward attends with the CUDA kernels of
+    ops/attention.py (`self.attention`, which counts their launches).  What
+    the kernels do not express (active attention dropout) raises there; the
+    forward never changes its attention path by itself."""
 
     def __init__(self, vocab_sizes: Sequence[int],
                  extra_vocab_sizes: Sequence[int], block_size: int,
@@ -118,7 +159,8 @@ class CondTupleGPT(nn.Module):
                  embd_pdrop: float = 0.0, resid_pdrop: float = 0.0,
                  attn_pdrop: float = 0.0, n_unmasked: int = 0,
                  head_hidden_layers: int = 0,
-                 cache_dtype: torch.dtype = torch.bfloat16):
+                 cache_dtype: torch.dtype = torch.bfloat16,
+                 flash_attn: bool = False):
         super().__init__()
         if not tuple_n == len(vocab_sizes) == len(n_layers):
             raise ValueError("tuple_n, vocab_sizes and n_layers disagree")
@@ -128,6 +170,10 @@ class CondTupleGPT(nn.Module):
         self.n_layers = tuple(n_layers)
         self.n_embd, self.n_head = n_embd, n_head
         self.cache_dtype = cache_dtype
+        self.embd_pdrop, self.attn_pdrop = embd_pdrop, attn_pdrop
+        self.resid_pdrop = resid_pdrop
+        self.flash_attn = flash_attn
+        self.attention = CausalAttention()
         self.n_extra = len(extra_vocab_sizes)
         for i, v in enumerate(vocab_sizes):
             setattr(self, f"tok_embs_{i}", nn.Embedding(v, n_embd))
@@ -137,7 +183,8 @@ class CondTupleGPT(nn.Module):
         self.cond_pos_emb = nn.Parameter(torch.zeros(1, block_size, n_embd))
         for i, n in enumerate(n_layers):
             for j in range(n):
-                setattr(self, f"stages_{i}_{j}", Block(n_embd, n_head))
+                setattr(self, f"stages_{i}_{j}",
+                        Block(n_embd, n_head, attn_pdrop, resid_pdrop))
             setattr(self, f"heads_{i}",
                     Head(vocab_sizes[i], n_embd, head_hidden_layers))
 
@@ -156,6 +203,57 @@ class CondTupleGPT(nn.Module):
         extra = sum(getattr(self, f"extra_tok_embs_{i}")(extra_idx[..., i])
                     for i in range(self.n_extra))
         return tok + extra
+
+    def forward(self, idx: torch.Tensor, extra_idx: torch.Tensor,
+                L_cond: int, target_idx: torch.Tensor,
+                key_valid: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                logits_start: int = 0) -> List[torch.Tensor]:
+        """Training forward: [logits_i (B, T - logits_start, V_i)].
+
+        idx (B, T, tuple_n), extra_idx (B, T, n_extra); the first L_cond
+        positions take the condition positional table, the rest the
+        generation table from 0.  target_idx is idx shifted left by one:
+        stage i + 1 runs on stage i's stream plus tok_emb_i(target[..., i]).
+        key_valid (B, T) bool hides padding keys.  The heads run only from
+        position logits_start on.  Dropout is active when `deterministic` is
+        False, with masks from `generator`."""
+        T = idx.shape[1]
+        if T > self.block_size:
+            raise ValueError(f"sequence of {T} exceeds block_size "
+                             f"{self.block_size}")
+        pdrops = (self.embd_pdrop, self.resid_pdrop, self.attn_pdrop)
+        if deterministic:
+            generator = None
+        elif generator is None and any(p > 0 for p in pdrops):
+            raise ValueError("dropout needs a generator")
+        flash = None
+        mask = None
+        if self.flash_attn:
+            if generator is not None and self.attn_pdrop > 0:
+                raise NotImplementedError(
+                    "the attention kernels have no dropout: use attn_pdrop = "
+                    "0 or flash_attn = False")
+            flash = self.attention
+        else:
+            causal = torch.ones((T, T), dtype=torch.bool,
+                                device=idx.device).tril()
+            mask = causal[None, None]
+            if key_valid is not None:
+                mask = mask & key_valid[:, None, None, :]
+        pos = torch.cat([self.cond_pos_emb[:, :L_cond],
+                         self.pos_emb[:, :T - L_cond]], dim=1)
+        x = self._token_embedding(idx, extra_idx) + pos
+        logits = []
+        for i in range(self.tuple_n):
+            x = dropout(x, self.embd_pdrop, generator)
+            for blk in self.stage(i):
+                x, _ = blk(x, mask, key_valid, flash, generator)
+            logits.append(self.head(i, x[:, logits_start:]))
+            if i < self.tuple_n - 1:
+                x = x + self.tok_emb(i, target_idx[..., i])
+        return logits
 
     @property
     def cache_block(self) -> int:

@@ -106,7 +106,7 @@ def complete(sf: ShapeFormer, xct, name: str = "", *, sample_n: int = 4,
     gen = torch.Generator(device=device).manual_seed(
         zlib.crc32(name.encode()) % (2 ** 31))
     with torch.no_grad():
-        c, _, _, others = rep.get_indices(xct)
+        c, _, _, others = rep.get_indices(xct, stage="test")
         if on_phase is not None:
             on_phase("tokenize")
         out, raw, logp = sf.sample(

@@ -100,13 +100,15 @@ def test_complete_matches_jax_compute_batch_flow(monkeypatch):
 
 
 def test_port_imports_nothing_of_jax():
-    """The port and its serving entry import no jax, flax, yaml, h5py or
-    shapeformer_tpu module."""
+    """The port, its serving and training entries and its smoke script
+    import no jax, flax, optax, yaml, h5py or shapeformer_tpu module."""
     code = ("import sys\n"
             "import shapeformer_tpu_torch, shapeformer_tpu_torch.serve\n"
             "import shapeformer_tpu_torch.kernels\n"
+            "import shapeformer_tpu_torch.systems, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'yaml', 'h5py', 'shapeformer_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'h5py', "
+            "'shapeformer_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,

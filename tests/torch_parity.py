@@ -80,17 +80,18 @@ def perturb(params, rng, scale=0.05):
 
 
 @functools.lru_cache(maxsize=None)
-def build_pair(seed=0, n_pts=1024):
+def build_pair(seed=0, n_pts=1024, n_head=4):
     """JAX VQDIF + ShapeFormer and their port counterparts (CPU) with the
     same weights.  Returns a namespace with jax_vqdif, jax_vars, jax_sf,
     jax_params, port (serve-built ShapeFormer with its VQDIF) and opts.
+    n_head=2 gives the head width 64 that the attention kernels take.
     Cached: the test files of one process share a pair."""
     from shapeformer_tpu.models.shapeformer.shapeformer import (
         ShapeFormer as JaxShapeFormer)
     from shapeformer_tpu.models.vqdif.vqdif import VQDIF as JaxVQDIF
     from shapeformer_tpu_torch import serve
 
-    vqdif_opt, sf_opt = small_opts()
+    vqdif_opt, sf_opt = small_opts(n_head=n_head)
     rng = np.random.default_rng(seed)
     jvq = JaxVQDIF(**vqdif_opt)
     jsf = JaxShapeFormer(**sf_opt, defer_vqvae=True)
@@ -121,3 +122,25 @@ def synthetic_cloud(seed, n_points):
     """(1, n, 3) float32 partial cloud from the port's sampler."""
     from shapeformer_tpu_torch.data.synthetic import partial_cloud
     return partial_cloud(np.random.default_rng(seed), n_points)[None]
+
+
+def train_batch(seed, batch=2, context_n=1024, boundary_n=2048):
+    """{Xct (B, context_n, 3), Xbd (B, boundary_n, 3)} float32: a partial
+    scan and the whole surface of one shape per row, from the port's
+    sampler."""
+    from shapeformer_tpu_torch.data.synthetic import training_pair
+    rng = np.random.default_rng(seed)
+    pairs = [training_pair(rng, context_n, boundary_n) for _ in range(batch)]
+    return dict(Xct=np.stack([p[0] for p in pairs]),
+                Xbd=np.stack([p[1] for p in pairs]))
+
+
+def port_named(tree):
+    """A JAX parameter-shaped tree (parameters or their gradients, with or
+    without the 'params' level) -> {port parameter name: numpy array}."""
+    from shapeformer_tpu_torch.convert import convert_variables
+    tree = to_numpy(tree)
+    if set(tree) != {"params"}:
+        tree = {"params": tree}
+    return {k: np.ascontiguousarray(v)
+            for k, v in convert_variables(tree).items()}
